@@ -1,7 +1,7 @@
-"""sequila-tpu: a TPU-native vectorized query-execution engine for genomic
-interval queries.
+"""sequila-tpu: an accelerator-native vectorized query-execution engine for
+genomic interval queries.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 biodatageeks/sequila-native (an Apache DataFusion extension written in Rust):
 a SQL/DataFrame engine whose flagship operator is a range-overlap *interval
 join*, plus nearest, count-overlaps, coverage/pileup, merge, complement and
@@ -13,7 +13,7 @@ sequila/sequila-core/src/physical_planner/joins/interval_join.rs) and probes
 them row by row on the CPU, this engine keeps intervals as flat sorted
 columnar arrays decomposed into monotone "levels" so that every overlap query
 becomes a pair of vectorized rank computations with contiguous match runs —
-a formulation that maps directly onto TPU sort/scan/gather hardware and
+a formulation that maps directly onto GPU sort/scan/gather hardware and
 scales over device meshes with XLA collectives.
 """
 

@@ -6,7 +6,7 @@ are settable at runtime via SQL ``SET sequila.<key> = <value>`` and select
 between interval-join execution strategies.
 
 The reference's seven algorithms choose among CPU interval-index data
-structures (COITrees, rust-bio trees, Lapper, superintervals).  On TPU all
+structures (COITrees, rust-bio trees, Lapper, superintervals).  Here all
 equality-semantics variants share one index layout (sorted level-decomposed
 columnar arrays, see ops/interval_index.py) but select different *query
 kernels*; the two semantics-changing variants (nearest, count-overlaps) map
@@ -27,11 +27,11 @@ class Algorithm(enum.Enum):
     Same seven names as the reference ``Algorithm`` enum (reference
     session_context.rs:62-119, parsed case-insensitively :86-106).
 
-    TPU mapping:
+    Device mapping:
 
     - ``COITREES`` (default), ``SUPER_INTERVALS``: sort-based rank kernel —
-      queries ranked against the index by lexicographic co-sort (XLA's tuned
-      TPU sort), best for large probe batches.
+      queries ranked against the index by lexicographic co-sort (XLA's
+      device sort), best for large probe batches.
     - ``INTERVAL_TREE``, ``ARRAY_INTERVAL_TREE``: binary-search rank kernel —
       per-query vectorized binary search (gather-based), best for small
       probe batches against large indexes.

@@ -1,7 +1,7 @@
 """Build + load the native C++ host index (ctypes binding).
 
 The shared library is compiled on first use with the system toolchain and
-cached under ~/.cache/sequila_tpu/native keyed by a source hash — the
+cached under ``.native_build/`` in the checkout, keyed by a source hash — the
 moral equivalent of the reference shipping its superintervals index as a
 compiled extension (reference superintervals/setup.py builds the Cython/
 C++ wheel).  `SEQUILA_NATIVE=0` disables the native path (pure NumPy
@@ -18,6 +18,7 @@ import threading
 import numpy as np
 
 _SRC = os.path.join(os.path.dirname(__file__), "src", "sequila_native.cc")
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _LOCK = threading.Lock()
 _LIB = None
 _TRIED = False
@@ -26,7 +27,7 @@ _TRIED = False
 def _cache_dir() -> str:
     d = os.environ.get(
         "SEQUILA_NATIVE_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache", "sequila_tpu", "native"),
+        os.path.join(_REPO, ".native_build"),
     )
     os.makedirs(d, exist_ok=True)
     return d

@@ -1,1 +1,1 @@
-"""TPU compute kernels: ranks, interval index, interval join, coverage ops."""
+"""Device compute kernels: ranks, interval index, interval join, coverage ops."""

@@ -517,11 +517,10 @@ def slop(keys, starts, ends, left: int, right: int, key_sizes=None):
 def _coverage_ranks4(ks, ss, ke, ee, qk_d, qs_d, qe_d):
     """The four coverage ranks as SEPARATE device programs.
 
-    Measured on the v5e: one fused jnp.stack program runs ~5x slower
-    than four independent rank programs (XLA schedules the four co-sorts
-    far worse inside one computation), so independent dispatch — which
-    also overlaps compute with the serialized fetches — wins despite the
-    extra round trips."""
+    Independent dispatch lets compute overlap the serialized fetches;
+    one fused jnp.stack program was measured slower on earlier hardware
+    (XLA scheduled the four co-sorts worse inside one computation).
+    Not yet re-measured on the GPU."""
     from sequila_tpu.ops.ranks import rank_lex_sort
 
     return (

@@ -1,16 +1,16 @@
 """Host (NumPy) interval-join execution path for small inputs.
 
-The TPU kernels pay a one-time XLA compile per shape bucket — tens of
-seconds against a remote TPU — which dwarfs tiny interactive queries (the
-reference's 12-row fixtures answer in microseconds on a CPU).  Below a row
+The device kernels pay a one-time XLA compile per shape bucket, which
+dwarfs tiny interactive queries (the reference's 12-row fixtures answer
+in microseconds on a CPU).  Below a row
 threshold the operator routes here: exact same semantics (end-inclusive
 i32, degenerate-query stabbing matches, nearest/NULL rules), vectorized
 NumPy on int64 composites.  The native C++ library (sequila_tpu/native)
 replaces the inner loops of this path when built.
 
 This mirrors the reference's own layering: its per-chromosome indexes are
-CPU-side; our CPU path is the small-query fallback while the TPU path is
-the scale path.
+CPU-side; our CPU path is the small-query fallback while the device path
+is the scale path.
 """
 
 from __future__ import annotations

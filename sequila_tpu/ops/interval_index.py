@@ -1,11 +1,11 @@
-"""Level-decomposed columnar interval index — the TPU replacement for the
+"""Level-decomposed columnar interval index — the device replacement for the
 reference's per-chromosome interval trees.
 
 The reference builds, per equi-key (chromosome), one of seven pointer-based
 interval structures (COITrees van-Emde-Boas trees, rust-bio AVL trees,
 Lapper lists, superintervals branch arrays; reference
 interval_join.rs:766-873) and answers each probe row with a per-row
-query callback.  None of those shapes map onto TPU hardware.
+query callback.  None of those shapes map onto batched device kernels.
 
 Two flat-array views are built (lazily, each on first use):
 
@@ -186,9 +186,6 @@ class IntervalIndex:
                 ends=d(V0),
                 pos=d(np.full(total, -1, np.int32)),
                 pos_host=np.full(total, -1, np.int32),
-                keys_host=K0,
-                starts_host=V0,
-                ends_host=V0,
             )
             return
 
@@ -249,7 +246,6 @@ class IntervalIndex:
             max_lens=tuple(max_lens),
             levels=d(L), keys=d(K), starts=d(S), ends=d(E), pos=d(P),
             pos_host=P,
-            keys_host=K, starts_host=S, ends_host=E,
         )
 
     def _lvl_get(self, name):
@@ -265,15 +261,10 @@ class IntervalIndex:
     starts = property(lambda self: self._lvl_get("starts"))
     ends = property(lambda self: self._lvl_get("ends"))
     pos = property(lambda self: self._lvl_get("pos"))
-    # host copies of the level-view arrays (built anyway during index
-    # construction): pos_host lets emission expand device bounds host-side
-    # without transferring the full pair list over the slow device link;
-    # keys/starts/ends feed the merge-bounds planner's packed slices and
-    # block windows (ops/pallas/merge_count.plan_level_bounds)
+    # host copy of the level-view positions (built anyway during index
+    # construction): lets emission expand device bounds host-side
+    # without copying the full pair list off the device
     pos_host = property(lambda self: self._lvl_get("pos_host"))
-    keys_host = property(lambda self: self._lvl_get("keys_host"))
-    starts_host = property(lambda self: self._lvl_get("starts_host"))
-    ends_host = property(lambda self: self._lvl_get("ends_host"))
 
     @property
     def num_levels(self) -> int:

@@ -3,7 +3,7 @@
 Brute-force O(n*m) semantics transcribed from the reference engine's
 contracts: end-inclusive i32 overlap (interval_join.rs get(), :957-1020),
 nearest (:909-990), counts.  Used by the test-suite as ground truth for the
-TPU kernels, mirroring how the reference uses stock HashJoin/NLJ output as
+device kernels, mirroring how the reference uses stock HashJoin/NLJ output as
 its cross-algorithm oracle (tests/integration_test.rs).
 """
 

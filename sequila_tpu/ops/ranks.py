@@ -3,19 +3,19 @@
 Every overlap query in this engine reduces to ranks of query tuples inside a
 sorted build-side array (see ops/interval_join.py).  The reference engine
 answers the per-row question with pointer-based interval trees (COITrees et
-al.); on TPU we instead batch all queries and compute their ranks with one of
+al.); here we instead batch all queries and compute their ranks with one of
 two strategies:
 
 - ``rank_lex_sort``: co-sort build tuples and query tuples with
   ``jax.lax.sort`` (multi-operand lexicographic sort, ``num_keys``), then
   read each query's rank off the merged order with a scan.  Everything stays
-  int32 — no 64-bit composite keys — and XLA's TPU sort is heavily tuned.
+  int32 — no 64-bit composite keys.
   O((n+m) log(n+m)) with perfect vectorization; the default for large
   probe batches.
 
 - ``rank_lex_bsearch``: classic vectorized binary search over an int64
-  composite key (gather per step).  O(m log n) but gather-latency-bound on
-  TPU; better when m << n.
+  composite key (gather per step).  O(m log n), gather-latency-bound;
+  better when m << n.
 
 Both return, for each query tuple q, the number of build tuples t with
 t < q ('left') or t <= q ('right') in lexicographic order.

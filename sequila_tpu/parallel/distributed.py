@@ -1,13 +1,13 @@
 """Multi-host runtime initialization.
 
 The reference is single-process (SURVEY.md §2: no MPI/NCCL/Gloo; its
-Spark-era ancestor handled clusters).  This engine scales across TPU
+Spark-era ancestor handled clusters).  This engine scales across GPU
 hosts with JAX's native distributed runtime: every host calls
 ``initialize()`` (one process per host), after which ``jax.devices()``
-spans the pod slice, ``parallel.mesh.make_mesh`` builds a global mesh,
-and the shard_map joins in partitioned_join.py run unchanged — XLA routes
-the psum/all-gather collectives over ICI within a slice and DCN across
-slices.
+spans the cluster, ``parallel.mesh.make_mesh`` builds a global mesh,
+and the shard_map joins in partitioned_join.py run unchanged — XLA hands
+the psum/all-gather collectives to NCCL (NVLink within a host, the
+network across hosts).
 
 Single-host multi-chip needs no initialization at all.  This module is
 exercised indirectly: the driver's ``dryrun_multichip`` and the test
@@ -29,9 +29,9 @@ def initialize(
 ) -> None:
     """Join the multi-host JAX runtime (idempotent).
 
-    With no arguments, JAX auto-detects TPU pod topology from the
-    environment (the standard TPU VM metadata); arguments override for
-    manual clusters.  MUST be the first JAX call in the process — even
+    With no arguments, JAX auto-detects the cluster from its environment
+    (for example a SLURM allocation); arguments are required elsewhere:
+    coordinator address, process count and process id.  MUST be the first JAX call in the process — even
     jax.process_count() would initialize the XLA backend and make
     distributed initialization impossible.
     """

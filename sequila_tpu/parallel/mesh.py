@@ -3,11 +3,11 @@
 The reference parallelizes with DataFusion partitions on a tokio thread
 pool (`target_partitions`), with two distribution modes for the interval
 join: CollectLeft (single shared build) and Partitioned (hash-partitioned
-both sides) — reference interval_join.rs:258-321,385-404.  The TPU analogs
-(SURVEY.md §2 parallelism table):
+both sides) — reference interval_join.rs:258-321,385-404.  The device-mesh
+analogs (SURVEY.md §2 parallelism table):
 
 - mesh axis 'part': contig-hash partition of the build side (the
-  Partitioned mode analog; exchange = all_to_all-style host/ICI shuffle);
+  Partitioned mode analog; exchange = all_to_all-style host/device shuffle);
 - mesh axis 'probe': row-parallel split of the probe stream within each
   partition (the analog of multiple probe partitions sharing one build via
   OnceAsync, plus psum for count aggregates).

@@ -10,7 +10,7 @@
    synthesizes `on = [(1, 1)]` — one global key segment — exactly like the
    reference (:127-148).
 
-2. CountFastPathRule — TPU-specific: `count(*)` over an inner interval
+2. CountFastPathRule — engine-specific: `count(*)` over an inner interval
    join needs no pair materialization (the BITS count is exact), so
    Aggregate(count, no group-by) directly over IntervalJoinExec becomes an
    IntervalCountExec.  This is the whole databio benchmark query shape.

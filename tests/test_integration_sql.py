@@ -349,7 +349,7 @@ def test_low_memory_mode_matches(ctx):
 @pytest.mark.parametrize("threshold", ["0", "65536"])
 def test_device_and_host_paths_agree(ctx, monkeypatch, threshold):
     """The same SQL must produce identical results through the device
-    (TPU-kernel) path and the small-query host path."""
+    (device-kernel) path and the small-query host path."""
     monkeypatch.setenv("SEQUILA_HOST_THRESHOLD", threshold)
     set_algorithm(ctx, Algorithm.COITREES)
     assert rows_of(ctx.sql(EQUI_QUERY)) == sorted_rows(EXPECTED_EQUI)

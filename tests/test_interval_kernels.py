@@ -331,112 +331,11 @@ class TestBitsCount:
         assert bits[0] == 0
 
 
-class TestPallasRankKernel:
-    def test_merge_window_rank_parity(self, rng):
-        """Pallas merge-window rank == co-sort rank (interpreter on CPU;
-        the same kernel is compiled and parity-checked on real TPU by the
-        verification drives)."""
-        from sequila_tpu.ops.pallas.rank_kernel import rank_lex_pallas
-
-        bk = rng.integers(0, 4, 1500).astype(np.int32)
-        bv = rng.integers(0, 5000, 1500).astype(np.int32)
-        qk = rng.integers(0, 5, 900).astype(np.int32)
-        qv = rng.integers(0, 5200, 900).astype(np.int32)
-        for side in ("left", "right"):
-            got = np.asarray(
-                rank_lex_pallas(
-                    (jnp.asarray(bk), jnp.asarray(bv)),
-                    (jnp.asarray(qk), jnp.asarray(qv)),
-                    side=side,
-                )
-            )
-            want = np.asarray(
-                rank_lex_sort(
-                    (jnp.asarray(bk), jnp.asarray(bv)),
-                    (jnp.asarray(qk), jnp.asarray(qv)),
-                    side=side,
-                )
-            )
-            np.testing.assert_array_equal(got, want)
-
-    def test_duplicates_at_chunk_boundaries(self):
-        """Equal tuples straddling chunk boundaries must rank exactly."""
-        from sequila_tpu.ops.pallas.rank_kernel import rank_lex_pallas
-
-        n = 6000
-        bk = np.zeros(n, np.int32)
-        bv = np.full(n, 7, np.int32)  # one giant equal run
-        qk = np.zeros(5, np.int32)
-        qv = np.array([6, 7, 7, 8, 7], np.int32)
-        left = np.asarray(
-            rank_lex_pallas((jnp.asarray(bk), jnp.asarray(bv)), (jnp.asarray(qk), jnp.asarray(qv)), "left")
-        )
-        right = np.asarray(
-            rank_lex_pallas((jnp.asarray(bk), jnp.asarray(bv)), (jnp.asarray(qk), jnp.asarray(qv)), "right")
-        )
-        np.testing.assert_array_equal(left, [0, 0, 0, n, 0])
-        np.testing.assert_array_equal(right, [0, n, n, n, n])
-
-    def test_empty_queries_and_vmem_fallback(self, rng):
-        from sequila_tpu.ops.pallas import rank_kernel as rkmod
-        from sequila_tpu.ops.pallas.rank_kernel import rank_lex_pallas
-
-        e = jnp.asarray(np.empty(0, np.int32))
-        out = rank_lex_pallas((e, e), (e, e))
-        assert out.shape == (0,)
-        bk = jnp.asarray(rng.integers(0, 3, 100).astype(np.int32))
-        out = rank_lex_pallas((bk, bk), (e, e))
-        assert out.shape == (0,)
-        # oversized build falls back to the co-sort rank
-        old = rkmod.MAX_VMEM_BUILD
-        try:
-            rkmod.MAX_VMEM_BUILD = 10
-            qk = jnp.asarray(rng.integers(0, 4, 50).astype(np.int32))
-            got = np.asarray(rank_lex_pallas((bk, bk), (qk, qk), "right"))
-            want = np.asarray(rank_lex_sort((bk, bk), (qk, qk), "right"))
-            np.testing.assert_array_equal(got, want)
-        finally:
-            rkmod.MAX_VMEM_BUILD = old
-
-
-class TestStreamRankKernel:
-    def test_streaming_rank_parity(self, rng):
-        """HBM-streaming double-buffered DMA rank == co-sort rank."""
-        from sequila_tpu.ops.pallas.stream_rank import rank_lex_stream
-
-        bk = rng.integers(0, 4, 5000).astype(np.int32)
-        bv = rng.integers(0, 9000, 5000).astype(np.int32)
-        qk = rng.integers(0, 5, 1300).astype(np.int32)
-        qv = rng.integers(0, 9500, 1300).astype(np.int32)
-        for side in ("left", "right"):
-            got = np.asarray(
-                rank_lex_stream(
-                    (jnp.asarray(bk), jnp.asarray(bv)),
-                    (jnp.asarray(qk), jnp.asarray(qv)), side,
-                )
-            )
-            want = np.asarray(
-                rank_lex_sort(
-                    (jnp.asarray(bk), jnp.asarray(bv)),
-                    (jnp.asarray(qk), jnp.asarray(qv)), side,
-                )
-            )
-            np.testing.assert_array_equal(got, want)
-
-    def test_streaming_empty_sides(self):
-        from sequila_tpu.ops.pallas.stream_rank import rank_lex_stream
-
-        e = jnp.asarray(np.empty(0, np.int32))
-        b = jnp.asarray(np.arange(10, dtype=np.int32))
-        assert rank_lex_stream((e, e), (b, b)).shape == (10,)
-        assert rank_lex_stream((b, b), (e, e)).shape == (0,)
-
-
 class TestStreamSortedCount:
     @pytest.mark.parametrize("deltas", [(0, 0, 0, 0), (0, -1, 0, -1), (1, 0, 0, -1)])
     def test_stream_count_matches_oracle(self, rng, deltas):
-        """The sort-free cached-view count path == brute force, incl. the
-        planner's ±1 strict-op deltas."""
+        """The sort-free cached-view count path (the packed-u32 merge
+        count) == brute force, incl. the planner's ±1 strict-op deltas."""
         import pyarrow as pa
 
         from sequila_tpu.config import Algorithm
@@ -480,8 +379,8 @@ class TestStreamSortedCount:
             algorithm=Algorithm.COITREES,
         )
         ctx = ExecContext(SequilaConfig())
-        got = join._stream_sorted_count(ctx, lt, rt)
-        assert got is not None, "stream backend must engage for this shape"
+        got = join._merge_sorted_count(ctx, lt, rt)
+        assert got is not None, "merge backend must engage for this shape"
         lk = lt.column_np("contig")
         ls = lt.column_np("s") + d_bs
         le = lt.column_np("e") + d_be

@@ -1,7 +1,7 @@
-"""Packed-u32 pallas merge-count backend (ops/pallas/merge_count.py).
+"""Packed-u32 merge-count backend (ops/merge_count.py).
 
 The whole-genome count(*) fast path: ranks the sorted build views inside
-the sorted probe views with a streaming window kernel — no device sort.
+the sorted probe views with a vectorized binary search — no device sort.
 Parity is asserted against brute force and against the co-sort backend,
 including the planner's ±1 strict-op deltas, missing keys, negative
 coordinates, and the 32-bit span-budget fallback.
@@ -18,7 +18,7 @@ from sequila_tpu.exec.context import ExecContext
 from sequila_tpu.exec.joins.interval_join import IntervalJoinExec
 from sequila_tpu.exec.plan import ScanExec
 from sequila_tpu.models.table import Table, merge_dictionaries
-from sequila_tpu.ops.pallas import merge_count as mc
+from sequila_tpu.ops import merge_count as mc
 from sequila_tpu.planner.expr import BinaryExpr, Column, Literal
 from sequila_tpu.planner.intervals import ColInterval, ColIntervals
 
@@ -286,7 +286,7 @@ class TestMergeVerbBackend:
         a, b = self._rename(rt), self._rename(lt)
         monkeypatch.setattr(gdf, "_route_perprobe_host", lambda *x: False)
         # assert the merge plan actually engages for this shape
-        from sequila_tpu.ops.pallas import merge_count as mc
+        from sequila_tpu.ops import merge_count as mc
 
         ib = (0, 1, 2)
         assert mc.plan_verb_ranks(b, a, ib, ib, want4=True) is not None
@@ -310,7 +310,7 @@ class TestMergeVerbBackend:
         """Degenerate probe rows must decline the merge plan; the verb
         falls back to the exact kernels with the right answer."""
         from sequila_tpu import dataframe as gdf
-        from sequila_tpu.ops.pallas import merge_count as mc
+        from sequila_tpu.ops import merge_count as mc
 
         lt, _ = _tables(rng, 300, 10)
         b = self._rename(lt)
@@ -368,15 +368,6 @@ class TestMergeCountPieces:
             assert mins[c] == sel.min()
             assert maxs[c] == sel.max()
 
-    def test_view_composite_sorted_with_pads(self, rng):
-        """The cached host composite must be ascending including PAD rows
-        (a PAD code's natural composite would overflow int64)."""
-        n = 100  # pads to 2048 -> mostly PAD rows
-        s = rng.integers(-(2**31), 2**31 - 1, n).astype(np.int64)
-        t = Table(pa.table({"contig": ["a"] * n, "s": s}))
-        comp = t.sorted_view_composite(0, 1)
-        assert (np.diff(comp) >= 0).all()
-
     def test_plan_packing_span_budget(self):
         """Spans just inside / outside the 32-bit budget."""
         remap_b = np.array([0, 1], np.int32)
@@ -393,21 +384,94 @@ class TestMergeCountPieces:
         )
         assert mc.plan_packing(remap_b, remap_q, views_over, (0, 0, 0, 0)) is None
 
-    def test_merge_rank_sorted_parity(self, rng):
-        """The pallas window kernel == np.searchsorted on u32 domains."""
+    @pytest.mark.parametrize("strict", [True, False])
+    def test_merge_rank_sorted_parity(self, rng, strict):
+        """The rank primitive == np.searchsorted on u32 domains."""
         n, m = 4096, 6144
         a_h = np.sort(rng.integers(0, 2**32 - 3, m, dtype=np.uint32))
         q_h = np.sort(rng.integers(0, 2**32 - 3, n, dtype=np.uint32))
-        lo = np.searchsorted(a_h, q_h[0 :: mc.BLOCK], side="left")
-        hi = np.searchsorted(a_h, q_h[mc.BLOCK - 1 :: mc.BLOCK], side="right")
-        c_lo = (lo // mc.CHUNK).astype(np.int32)
-        c_hi = (-((-hi) // mc.CHUNK)).astype(np.int32)
-        n_ch = np.maximum(c_hi - c_lo, 0).astype(np.int32)
-        for strict, side in ((True, "left"), (False, "right")):
-            got = np.asarray(
-                mc._merge_rank_sorted(
-                    jnp.asarray(a_h), jnp.asarray(q_h),
-                    jnp.asarray(c_lo), jnp.asarray(n_ch), strict=strict,
-                )
-            )
-            np.testing.assert_array_equal(got, np.searchsorted(a_h, q_h, side=side))
+        got = np.asarray(
+            mc._rank_sorted(jnp.asarray(a_h), jnp.asarray(q_h), strict=strict)
+        )
+        side = "left" if strict else "right"
+        np.testing.assert_array_equal(got, np.searchsorted(a_h, q_h, side=side))
+
+
+def _padded(vals, n_pad, sentinel):
+    out = np.full(n_pad, sentinel, np.uint32)
+    out[: len(vals)] = np.sort(np.asarray(vals, np.uint32))
+    return out
+
+
+def _rank_cases():
+    r = np.random.default_rng(7)
+    hi = r.integers(2**31, 2**32 - 2, 3000, dtype=np.uint32)
+    dup_table = np.concatenate([
+        r.integers(0, 1000, 700), np.full(3000, 5000), r.integers(6000, 9000, 900),
+    ])
+    return {
+        # one value repeated across many 512-row blocks, queried at,
+        # just below and just above the run
+        "giant_duplicate_run": (
+            _padded(dup_table, 6144, mc._PROBE_PAD),
+            np.array([4999, 5000, 5000, 5001, 0, 9000], np.uint32),
+        ),
+        # a table filling its padded length exactly: no PAD tail at all
+        "aligned_no_pad_tail": (
+            np.sort(r.integers(0, 2**32 - 2, 2048, dtype=np.uint32)),
+            np.sort(r.integers(0, 2**32 - 2, 512, dtype=np.uint32)),
+        ),
+        # queries that are all build PAD: they rank the whole table,
+        # probe PAD slots included
+        "all_pad_queries": (
+            _padded(r.integers(0, 10**6, 100), 2048, mc._PROBE_PAD),
+            np.full(256, mc._BUILD_PAD, np.uint32),
+        ),
+        "empty_queries": (
+            _padded(r.integers(0, 10**6, 100), 2048, mc._PROBE_PAD),
+            np.zeros(0, np.uint32),
+        ),
+        # a table of PAD slots only (an empty side after padding)
+        "all_pad_table": (
+            np.full(2048, mc._PROBE_PAD, np.uint32),
+            np.sort(r.integers(0, 2**32 - 2, 300, dtype=np.uint32)),
+        ),
+        # packed values above 2^31 must compare unsigned, with both PAD
+        # sentinels present on their sides
+        "above_2_31_with_pads": (
+            _padded(hi, 4096, mc._PROBE_PAD),
+            np.concatenate([
+                np.sort(r.integers(2**31 - 5, 2**32 - 2, 700, dtype=np.uint32)),
+                np.full(68, mc._BUILD_PAD, np.uint32),
+            ]),
+        ),
+    }
+
+
+_RANK_CASES = _rank_cases()
+
+
+class TestRankSorted:
+    """The kept rank form (jnp.searchsorted over packed u32) against
+    np.searchsorted, on the edge shapes the padded sorted views produce."""
+
+    @pytest.mark.parametrize("strict", [True, False])
+    @pytest.mark.parametrize("case", sorted(_RANK_CASES))
+    def test_matches_numpy(self, case, strict):
+        a_h, q_h = _RANK_CASES[case]
+        assert (np.diff(a_h.astype(np.int64)) >= 0).all()
+        got = np.asarray(
+            mc._rank_sorted(jnp.asarray(a_h), jnp.asarray(q_h), strict=strict)
+        )
+        side = "left" if strict else "right"
+        assert got.dtype == np.int32
+        np.testing.assert_array_equal(got, np.searchsorted(a_h, q_h, side=side))
+
+    def test_partials_total_exact_past_int32(self):
+        """Per-64 partials keep the two-pass total exact when the summed
+        ranks exceed int32 (the host finishes in int64)."""
+        m_pad = (1 << 25) - 64
+        r1 = jnp.full((4096,), m_pad, jnp.int32)
+        r2 = jnp.zeros((4096,), jnp.int32).at[:64].set(1)
+        parts = np.asarray(jnp.stack([mc.rank_partials(r1), mc.rank_partials(r2)]))
+        assert mc.partials_to_total(parts) == 4096 * m_pad - 64

@@ -1,4 +1,4 @@
-"""Merge-rank emission bounds (ops/pallas/merge_count.plan_level_bounds /
+"""Merge-rank emission bounds (ops/merge_count.plan_level_bounds /
 merge_level_bounds) — the sort-free device materialization path.
 
 Parity contract: the merge backend's (build_rows, probe_rows) output is
@@ -22,7 +22,7 @@ from sequila_tpu.exec.plan import ScanExec
 from sequila_tpu.models.table import Table
 from sequila_tpu.ops.interval_index import build_interval_index
 from sequila_tpu.ops.interval_join import materialize_pairs, overlap_bounds
-from sequila_tpu.ops.pallas import merge_count as mc
+from sequila_tpu.ops import merge_count as mc
 from sequila_tpu.planner.expr import BinaryExpr, Column, Literal
 from sequila_tpu.planner.intervals import ColInterval, ColIntervals
 

@@ -472,14 +472,27 @@ def test_all_to_all_count_pipelined_chunks():
 
 class TestMeshBoundsStrategy:
     """Per-shard rank strategy routing (SEQUILA_MESH_BOUNDS): the sort-free
-    bsearch strategy (the virtual-mesh/CPU default — measured 6.5x faster
-    e2e at 8 devices) must be bit-identical to the co-sort across the mesh
-    entry points."""
+    bsearch strategy (the default on every backend) must be bit-identical
+    to the co-sort across the mesh entry points."""
 
     def test_auto_resolves_bsearch_on_cpu(self):
         from sequila_tpu.parallel.partitioned_join import mesh_bounds_strategy
 
         assert mesh_bounds_strategy() == "bsearch"
+
+    @pytest.mark.parametrize("backend", ["cpu", "gpu", "rocm"])
+    def test_default_ignores_backend_name(self, backend, monkeypatch):
+        """The default is one measured choice, not a branch on the
+        backend's name; only SEQUILA_MESH_BOUNDS changes it."""
+        import jax
+
+        from sequila_tpu.parallel.partitioned_join import mesh_bounds_strategy
+
+        monkeypatch.delenv("SEQUILA_MESH_BOUNDS", raising=False)
+        monkeypatch.setattr(jax, "default_backend", lambda: backend)
+        assert mesh_bounds_strategy() == "bsearch"
+        monkeypatch.setenv("SEQUILA_MESH_BOUNDS", "sort")
+        assert mesh_bounds_strategy() == "sort"
 
     @pytest.mark.parametrize("entry", ["count", "pairs", "probe_counts",
                                        "nearest", "coverage"])

@@ -2,7 +2,7 @@
 
 Spawns tools/multihost_dryrun.py: 2 OS processes x 4 CPU devices joined
 via jax.distributed.initialize (Gloo over localhost — the client/
-coordinator path a TPU pod uses over DCN), running hash/collect-left/
+coordinator path a multi-host cluster uses), running hash/collect-left/
 shuffle/skew counts, per-probe counts, and both materialization paths
 against the brute-force oracle.  This covers what the in-process virtual
 mesh cannot: cross-process device_put, collectives over non-addressable

@@ -173,7 +173,8 @@ def test_dict_take_disabled_env(lib_available, rng, monkeypatch):
 
 def test_materialize_route_cost_model(monkeypatch):
     """Routing: small inputs -> host; threshold 0 -> device; large inputs
-    use the link-vs-host-compute cost model (host on this link profile)."""
+    use the link-vs-host-compute cost model (the measured PCIe profile
+    sends them to the device, a slow link keeps them on the host)."""
     from types import SimpleNamespace
 
     from sequila_tpu.exec.joins.interval_join import IntervalJoinExec
@@ -185,12 +186,17 @@ def test_materialize_route_cost_model(monkeypatch):
 
     monkeypatch.setenv("SEQUILA_HOST_THRESHOLD", "65536")
     assert ij._route_materialize_host(tbl(100), tbl(100)) is True
-    # 20k x 300k: host compute beats the tunnel transfer
-    assert ij._route_materialize_host(tbl(20_000), tbl(300_000)) is True
+    # 20k x 300k on the default (measured PCIe) profile: the transfer is
+    # cheaper than the host compute
+    assert ij._route_materialize_host(tbl(20_000), tbl(300_000)) is False
     monkeypatch.setenv("SEQUILA_HOST_THRESHOLD", "0")
     assert ij._route_materialize_host(tbl(100), tbl(100)) is False
-    # a fast link flips large probes back to the device
+    # a slow link (30 ms round trip, 38 MB/s) keeps the same shape on the host
     monkeypatch.setenv("SEQUILA_HOST_THRESHOLD", "65536")
+    monkeypatch.setenv("SEQUILA_LINK_BW", "38e6")
+    monkeypatch.setenv("SEQUILA_LINK_RTT", "0.030")
+    assert ij._route_materialize_host(tbl(20_000), tbl(300_000)) is True
+    # a fast link sends large probes to the device
     monkeypatch.setenv("SEQUILA_LINK_BW", "1e12")
     monkeypatch.setenv("SEQUILA_LINK_RTT", "0.0")
     assert ij._route_materialize_host(tbl(20_000_000), tbl(30_000_000)) is False

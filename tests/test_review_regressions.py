@@ -128,7 +128,7 @@ class TestInvertedBuildIntervals:
         assert ctx.sql(Q).column_np(0)[0] == want
 
     def test_device_count_rows_inverted(self, monkeypatch):
-        # chunked count_rows path with the TPU kernels (host threshold 0)
+        # chunked count_rows path with the device kernels (host threshold 0)
         monkeypatch.setenv("SEQUILA_HOST_THRESHOLD", "0")
         ctx = SessionContext()
         rng = np.random.default_rng(7)
@@ -269,31 +269,6 @@ class TestGroupedCountReuse:
         want = {k: v for k, v in sorted(want.items()) if v > 0}
         assert list(res.column_np(0)) == list(want.keys())
         assert list(res.column_np(1)) == list(want.values())
-
-
-class TestChunkRankNoPadTail:
-    """Finding 6: Pallas chunk_rank with build exactly CHUNK-aligned (no
-    PAD tail) must not probe boundary == n_chunks."""
-
-    def test_chunk_aligned_build(self):
-        from sequila_tpu.ops.pallas.rank_kernel import CHUNK, rank_lex_pallas
-        from sequila_tpu.ops.ranks import np_rank_lex
-
-        rng = np.random.default_rng(11)
-        n = 2 * CHUNK  # exactly chunk-aligned: padding adds zero entries
-        bk = np.sort(rng.integers(0, 5, n)).astype(np.int32)
-        bv = rng.integers(0, 10**6, n).astype(np.int32)
-        m = 512
-        qk = rng.integers(0, 6, m).astype(np.int32)
-        # include queries larger than every build tuple (forces the
-        # binary search to the top end where the OOB read lived); stay
-        # below 2^20 (np_rank_lex packs 21-bit fields)
-        qv = rng.integers(10**6 - 5, 2**20 - 2, m).astype(np.int32)
-        got = np.asarray(rank_lex_pallas((jnp.asarray(bk), jnp.asarray(bv)),
-                                         (jnp.asarray(qk), jnp.asarray(qv)),
-                                         side="left"))
-        want = np_rank_lex((bk, bv), (qk, qv), side="left")
-        np.testing.assert_array_equal(got, want)
 
 
 class TestAggregateNullSkipping:

@@ -4,7 +4,7 @@ The driver's `dryrun_multichip` certifies the SPMD programs on a virtual
 8-device mesh inside ONE process; this script goes one step further and
 runs the same partitioned interval-join programs across TWO OS processes
 joined by `jax.distributed.initialize` (Gloo collectives over localhost —
-the same client/coordinator path a multi-host TPU pod uses over DCN).
+the same client/coordinator path a multi-host GPU cluster uses).
 That exercises what the single-process dryrun cannot: cross-process
 device_put of host data onto a global mesh, collectives spanning
 non-addressable devices, and replicated-output fetches.
